@@ -1,4 +1,4 @@
-// Native host-side chunk loader: the TPU framework's equivalent of the
+// Native host-side chunk loader: this framework's equivalent of the
 // reference trainer's C++ data engine (Interface::Readchunk,
 // Train_code_ML_GGD/Interface.cc:719-838).
 //

@@ -3,8 +3,8 @@
 Launched as ``python tests/mp_dp_worker.py <pid> <nproc> <port> <out.npz>``
 with a CPU backend and 2 virtual devices per process.  Joins a
 ``jax.distributed`` cluster over gloo collectives, runs one sharded
-``train_chunk`` over the GLOBAL mesh (the same step the TPU pod runs over
-ICI), and process 0 saves the resulting replicated params.
+``train_chunk`` over the GLOBAL mesh (the same step a multi-GPU host runs
+over NCCL), and process 0 saves the resulting replicated params.
 
 The parent test (tests/test_distributed.py) asserts the result matches a
 single-process run on an identical 4-device mesh.

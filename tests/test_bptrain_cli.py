@@ -174,7 +174,7 @@ def test_bptrain_format_error_and_unknown_keys(reference_dir, tmp_path):
 
 def test_bptrain_extension_keys_parse(reference_dir, tmp_path):
     """tpu_se extension keys ride the same key=value surface: the
-    device-resident threshold override (ADVICE r3) and mesh knobs parse
+    device-resident threshold override and mesh knobs parse
     as ints; 0 means 'use the TrainConfig default constant'."""
     from tpu_se.cli.bptrain import parse_kv
     from tpu_se.train.loop import TrainConfig

@@ -65,6 +65,29 @@ def test_lps_matches_golden(reference_dir, wav_rel, lps_rel):
     assert diff[loud].max() < 0.01
 
 
+@pytest.mark.parametrize("sample_rate", [8000, 11000, 16000])
+def test_lps_matches_float64_fft(sample_rate):
+    """The windowed-DFT GEMM against a float64 np.fft.rfft reference, per
+    rate config.  Bins far below their frame's peak carry only the GEMM's
+    absolute rounding error, which the log amplifies; they are compared
+    after the e^-50 floor only."""
+    from tpu_se.dsp.analysis import rate_config
+    from tpu_se.reference import np_lps
+
+    frame_length, frame_shift, _ = rate_config(sample_rate)
+    rng = np.random.default_rng(sample_rate)
+    t = np.arange(200 * frame_shift + frame_length) / sample_rate
+    wave = (3000 * np.sin(2 * np.pi * 440 * t * (1 + 0.3 * t))
+            + rng.normal(0, 300, t.size)).astype(np.int16)
+    frames = frame_signal(wave, frame_length, frame_shift)
+    got = np.asarray(lps_from_frames(jnp.asarray(frames)), np.float64)
+    want = np_lps(frames)
+    assert got.shape == (frames.shape[0], frame_length // 2 + 1)
+    near = want > want.max(axis=1, keepdims=True) - 40 / (10 / np.log(10))
+    assert np.abs(got - want)[near].max() < 1e-3
+    assert np.array_equal(got == -50.0, want == -50.0)
+
+
 def test_lps_methods_agree(reference_dir):
     wave, _ = read_wav(reference_dir / GOLDENS[0][0])
     frames = jnp.asarray(frame_signal(wave))
@@ -212,3 +235,46 @@ def test_reconstruct_roundtrip_ola_kind0(reference_dir):
     err01 = np.abs(out0[256:n - 256].astype(np.int32)
                    - out1[256:n - 256].astype(np.int32))
     assert err01.max() <= 2
+
+
+def test_to_pcm16_truncates_and_saturates_alike_on_host_and_device():
+    """The device-side int16 conversion of the serving paths must give what
+    the host cast gives, out-of-range samples included (a bare numpy cast
+    wraps them, XLA's convert saturates)."""
+    import jax
+
+    from tpu_se.dsp.synthesis import to_pcm16
+
+    x = np.array([-1e9, -40000.7, -32769.0, -32768.9, -32767.2, -0.7, 0.7,
+                  32766.9, 32767.9, 32768.0, 40000.2, 1e9], np.float32)
+    want = np.array([-32768, -32768, -32768, -32768, -32767, 0, 0, 32766,
+                     32767, 32767, 32767, 32767], np.int16)
+    host = to_pcm16(x)
+    dev = np.asarray(jax.jit(to_pcm16)(jnp.asarray(x)))
+    assert host.dtype == dev.dtype == np.int16
+    np.testing.assert_array_equal(host, want)
+    np.testing.assert_array_equal(dev, want)
+
+
+@pytest.mark.parametrize("sample_rate", [8000, 11000, 16000])
+def test_reference_front_end_agrees_with_the_program(sample_rate):
+    """The numpy reference frames, windows and converts to int16 on its own;
+    it must agree with the program's front end, or a check against it
+    measures the disagreement instead of the device error."""
+    from tpu_se.dsp.analysis import hamming_window, rate_config
+    from tpu_se.dsp.synthesis import to_pcm16
+    from tpu_se.reference import np_frames, np_pcm16
+
+    frame_length, frame_shift, _ = rate_config(sample_rate)
+    rng = np.random.default_rng(sample_rate)
+    for n in (frame_length - 1, frame_length - frame_shift + frame_shift,
+              7 * frame_shift + 3, 5000):
+        wave = rng.integers(-32768, 32767, n).astype(np.int16)
+        np.testing.assert_array_equal(
+            np_frames(wave, frame_length, frame_shift),
+            frame_signal(wave, frame_length, frame_shift))
+    np.testing.assert_allclose(np.hamming(frame_length),
+                               hamming_window(frame_length), atol=1e-7)
+    x = rng.normal(0, 20000, 4096).astype(np.float32)
+    np.testing.assert_array_equal(np_pcm16(x.astype(np.float64)),
+                                  to_pcm16(x))

@@ -87,8 +87,8 @@ def test_dropout_forward():
 
 def test_forward_act_dtype_bf16_close_to_f32():
     """The reduced-precision-activations throughput knob must track the
-    f32 forward closely (it only quantizes hidden activations; the GEMMs
-    already run bf16 on the MXU) and default to off."""
+    f32 forward closely (it only quantizes hidden activations) and default
+    to off."""
     import jax.numpy as jnp
 
     from tpu_se.models import forward, init_params

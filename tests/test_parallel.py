@@ -274,7 +274,7 @@ def test_overlap_step_unsharded_matches_train_chunk(ml, activation):
 def test_overlap_step_dp8_matches_single_device(devices8, ml):
     """shard_map overlap step on the 8-device mesh == unsharded train_chunk
     (same global-batch gradient sums and alpha, one chained psum per layer
-    — VERDICT r4 #1's engineered collective split)."""
+    — the engineered collective split)."""
     from tpu_se.parallel.overlap_step import (
         shard_overlap_args, train_chunk_overlap,
     )

@@ -194,7 +194,7 @@ def test_published_mos_lqo_mapping_constants():
 
 def test_spec_intermediate_anchors_bark_threshold_loudness():
     """Hand-computed P.862 intermediate-value anchors from the published
-    formulas (always-running certified-wheel stand-ins, VERDICT r3 #7):
+    formulas (always-running certified-wheel stand-ins):
 
     1. Schroeder Bark warp z = 7*asinh(f/650): z(650)=7*asinh(1)
        = 7*ln(1+sqrt(2)) = 6.16977…; z(1000) = 8.58747….

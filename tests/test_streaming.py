@@ -212,7 +212,7 @@ def test_feed_out_of_range_integers_skip_int16_wire(small_model):
 @pytest.fixture(scope="module", params=[8000, 11000])
 def rate_model(request, tmp_path_factory, reference_dir):
     """A small model + realistic norm at the 8 kHz (256/128, 2-hop OLA) or
-    11 kHz (256/110, 3-hop OLA) config — VERDICT r4 #3: these reach
+    11 kHz (256/110, 3-hop OLA) config: these reach
     _stream_step's ring logic and flush's partial-hop `need` arithmetic
     through paths the 16 kHz tests never exercise."""
     from tpu_se.dsp import wav_to_lps

@@ -6,59 +6,11 @@ import jax.numpy as jnp
 import pytest
 
 from tpu_se.models import init_params
+from tpu_se.reference import np_train_chunk
 from tpu_se.train import (
     TrainConfig, TrainHyper, evaluate_cv, load_checkpoint, make_train_state,
     run_training, save_checkpoint, train_chunk,
 )
-
-
-def _np_reference_train(params, noisy, clean, starts_2d, lr, hyper):
-    """Literal numpy transcription of BP_GPU::train_bunch_single +
-    kernUpdatedelta (the reference's exact update math, double 1/M and all).
-    """
-    W = [np.asarray(l["w"], dtype=np.float64) for l in params]
-    B = [np.asarray(l["b"], dtype=np.float64) for l in params]
-    vW = [np.zeros_like(w) for w in W]
-    vB = [np.zeros_like(b) for b in B]
-    n_layers = len(W)
-    ctx, off, beta = hyper.context, hyper.targ_offset, hyper.beta
-    m = hyper.bunchsize
-    alpha = np.ones(B[-1].shape[0])
-
-    for bunch in starts_2d:
-        idx = bunch[:, None] + np.arange(ctx)[None, :]
-        x = noisy[idx].reshape(m, -1).astype(np.float64)
-        targ = clean[bunch + off].astype(np.float64)
-        # forward
-        ys = [x]
-        for l in range(n_layers):
-            z = ys[-1] @ W[l] + B[l]
-            ys.append(1.0 / (1.0 + np.exp(-z)) if l < n_layers - 1 else z)
-        out = ys[-1]
-        err = out - targ
-        # output gradient (kernSubClean2 / kernfunc2 + DevVecMulNum 1/M)
-        sgn_pow = np.where(err == 0.0, 0.0,
-                           np.sign(err) * np.abs(np.where(err == 0, 1, err))
-                           ** (beta - 1.0))
-        if hyper.ml:
-            alpha = (beta * np.mean(np.abs(err) ** beta, axis=0)) ** (1 / beta)
-            dedx = (beta * sgn_pow / alpha ** beta) / m
-        else:
-            dedx = beta * sgn_pow / m
-        # backward + update (updatedelta divides by m AGAIN in parity mode)
-        opt_n = m if hyper.grad_scale == "parity" else 1
-        for l in reversed(range(n_layers)):
-            gw = ys[l].T @ dedx
-            gb = dedx.sum(axis=0)
-            if l > 0:
-                dedy = dedx @ W[l].T
-                dedx = ys[l] * (1.0 - ys[l]) * dedy
-            vW[l] = hyper.momentum * vW[l] - lr * (gw / opt_n
-                                                   + hyper.weightcost * W[l])
-            vB[l] = hyper.momentum * vB[l] - lr * (gb / opt_n)
-            W[l] = W[l] + vW[l]
-            B[l] = B[l] + vB[l]
-    return W, B, alpha
 
 
 def _tiny_problem(seed=0, n_frames=64, dim=5, ctx=3, m=8, n_bunches=3):
@@ -92,8 +44,7 @@ def test_train_chunk_matches_reference_math(ml, beta, grad_scale):
     state = make_train_state(params, layersizes[-1])
     new_state = train_chunk(state, jnp.asarray(noisy), jnp.asarray(clean),
                             jnp.asarray(starts), jnp.float32(lr), hyper)
-    W, B, alpha = _np_reference_train(params_np, noisy, clean, starts, lr,
-                                      hyper)
+    W, B, alpha = np_train_chunk(params_np, noisy, clean, starts, lr, hyper)
     for l in range(len(W)):
         np.testing.assert_allclose(np.asarray(new_state.params[l]["w"]),
                                    W[l], rtol=2e-4, atol=1e-6)

@@ -6,21 +6,18 @@ Measures training frames/sec at fixed per-device batch while growing the
 the 1-device run — the SURVEY.md §6 north-star (>=95% DP scaling).
 
 Modes:
-- On a multi-chip TPU slice: real numbers over ICI (run with no env overrides).
-- Anywhere else: functional harness over virtual CPU devices
-  (XLA_FLAGS=--xla_force_host_platform_device_count=8); on a 2-core host the
-  efficiency number reflects core oversubscription, not ICI — use it to
-  validate the harness, not the hardware.
+- On a multi-GPU host: real numbers over the devices' interconnect, at the
+  full 2048-wide hidden layers (run with no env overrides).
+- ``--cpu``: functional harness over virtual CPU devices at hidden width
+  256; the efficiency number reflects host-core oversubscription, not an
+  interconnect — use it to validate the harness, not the hardware.
 
-Scaling analysis for the flagship workload (documented, measured single-chip):
-- Parity mode (global M=128) does NOT distribute: every update all-reduces
-  the full 12.6M-param gradient (~50 MB) against ~90 us of compute — the
-  reference's 2017-era minibatch is inherently serial. This is a property of
-  the workload, not the framework.
-- Production scaling uses grad_scale='natural' with per-chip bunches in the
-  4k-16k range: compute per update grows ~linearly with local batch while
-  the psum stays 50 MB, crossing 95% efficiency near M_local ~ 16k on v5e
-  (0.55 ms psum vs ~11 ms compute, overlapped by the XLA scheduler).
+Parity mode (global M=128) does not distribute well: every update
+all-reduces the full 12.6M-param gradient (~50 MB).  Production scaling
+uses grad_scale='natural' with per-device bunches of thousands of frames,
+where compute per update grows with the local batch while the reduction
+stays 50 MB.  Where efficiency crosses 95 % on a given machine is what this
+script measures.
 """
 
 import argparse
@@ -38,15 +35,15 @@ def main() -> int:
     ap.add_argument("--batch-per-device", type=int, default=1024)
     ap.add_argument("--bunches", type=int, default=8)
     ap.add_argument("--hidden", type=int, default=0,
-                    help="hidden width (0 = 2048 on TPU, 256 on CPU)")
+                    help="hidden width (0 = 2048, or 256 with --cpu)")
     ap.add_argument("--cpu", action="store_true",
                     help="force virtual CPU devices")
     ap.add_argument("--json", action="store_true",
-                    help="emit one JSON line (committed to benchmarks/)")
+                    help="emit one JSON line")
     args = ap.parse_args()
 
     sizes = [int(s) for s in args.meshes.split(",")]
-    if args.cpu or os.environ.get("JAX_PLATFORMS", "") == "cpu":
+    if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
@@ -62,7 +59,7 @@ def main() -> int:
     from tpu_se.train import TrainHyper, make_train_state, train_chunk
 
     platform = jax.devices()[0].platform
-    hidden = args.hidden or (2048 if platform == "tpu" else 256)
+    hidden = args.hidden or (256 if args.cpu else 2048)
     fea_dim, context = 257, 7
     layersizes = (fea_dim * context, hidden, hidden, hidden, fea_dim)
     n_frames = 65536
@@ -129,7 +126,7 @@ def main() -> int:
                 "frames_per_s": {str(n): round(v) for n, v in results.items()},
                 "note": ("virtual CPU devices oversubscribe host cores; "
                          "efficiency here validates the harness/collectives, "
-                         "not ICI — see SCALING.md for the hardware model"
+                         "not an interconnect"
                          if platform == "cpu" else "measured on hardware"),
             },
         }))

@@ -11,10 +11,10 @@ Measures the jitted hop step (``tpu_se/infer/streaming.py``) end to end
   channels one chip sustains.
 
 Prints one JSON line with the headline numbers; --out additionally writes
-the full per-stream-count record (committed as benchmarks/stream.json).
+the full per-stream-count record (``--out``).
 
 Usage: timeout 590 python tools/bench_stream.py [--streams N] [--model m.wts
-       --norm m.norm] [--out benchmarks/stream.json]
+       --norm m.norm] [--out stream.json]
 """
 
 import argparse
@@ -40,10 +40,9 @@ def main() -> int:
 
     import jax
 
-    cache_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from tpu_se.utils.cache import setup_compilation_cache
+
+    setup_compilation_cache()
 
     from tpu_se.infer import StreamingEnhancer
     from tpu_se.io import write_wts

@@ -450,7 +450,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--process-id", type=int, default=None)
     s.add_argument("--cpu-collectives", default="",
                    help="'gloo' for multi-process CPU runs (tests); "
-                        "TPU pods use ICI natively")
+                        "GPUs use NCCL without it")
     s.set_defaults(func=cmd_train)
 
     s = sub.add_parser("decode", help="noisy wavs -> enhanced wavs")
@@ -505,29 +505,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _setup_compilation_cache() -> None:
-    """Persistent jit cache shared across CLI processes.
-
-    The reference's process model is one trainer process per epoch
-    (``finetune.pl:47-126``); without a persistent cache every epoch
-    process would re-pay the full XLA compile (minutes each through a
-    remote TPU compiler).  Override the location with TPU_SE_JAX_CACHE;
-    set it empty to disable."""
-    cache = os.environ.get("TPU_SE_JAX_CACHE",
-                           os.path.expanduser("~/.cache/tpu_se_jax"))
-    if not cache:
-        return
-    # Via env vars, NOT jax.config: importing jax here would make every
-    # pure-IO command (make-pfile, pfile-info, ...) pay the multi-second
-    # jax import this module deliberately defers into the cmd_* bodies.
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", cache)
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS",
-                          "0.5")
-
-
 def main(argv=None) -> int:
+    from tpu_se.utils.cache import setup_compilation_cache
+
     raw = sys.argv[1:] if argv is None else list(argv)
-    _setup_compilation_cache()
+    setup_compilation_cache()
     if raw and raw[0] == "bptrain":
         # Drop-in BPtrain_Sigmoid front-end: key=value argument strings
         # (Interface.cc:150-315), bypassing argparse entirely so a

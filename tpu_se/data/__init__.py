@@ -7,7 +7,7 @@ device-side design:
 - ``chunks``     — chunk planner with the reference's per-sentence edge-drop
                    semantics (each sentence loses fea_context-1 frames).
 - ``splice``     — 7-frame context expansion, host (parity) and device
-                   (gather, TPU fast path) variants.
+                   (gather, the training fast path) variants.
 - ``dataset``    — paired noisy/clean pfile dataset -> per-chunk batches.
 - ``pipeline``   — double-buffered background prefetch (the producer-thread
                    equivalent) and per-host sharding for multi-process DP.

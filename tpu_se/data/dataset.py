@@ -140,7 +140,7 @@ class PfilePairDataset:
 
     # -- device-resident mode -------------------------------------------
     #
-    # TPU-first fast path: when the sentence range fits in HBM, the frame
+    # Fast path: when the sentence range fits in device memory, the frame
     # matrices are uploaded ONCE per job and an epoch only ships the
     # shuffled window-start indices (~0.4 MB/chunk instead of ~210 MB).
     # The reference semantics (chunk grouping, per-chunk shuffle, edge

@@ -1,9 +1,9 @@
 """DSP layer: LPS analysis and noisy-phase overlap-add synthesis.
 
-TPU-first re-design of the reference's ETSI front-end / vocoder
+Re-design of the reference's ETSI front-end / vocoder
 (``Feature_prepare/SourceCode_Wav2LogSpec_be``,
 ``Test_code/SourceCode_LogSpec2Wav_be``): the per-frame split-radix FFT
-becomes one batched windowed-DFT matmul on the MXU; OLA becomes a vectorized
+becomes one batched windowed-DFT matmul; OLA becomes a vectorized
 segment-sum.  Semantics (framing, window, log floor, OLA weights) match the
 reference exactly — see each module's docstring for the file:line citations.
 """

@@ -14,11 +14,15 @@ Reference semantics (``Feature_prepare/SourceCode_Wav2LogSpec_be``):
   then natural log with floor: power < e^-50 -> -50
   (``Wav2LogSpec_be.c:54,475-479``).
 
-TPU-first design: instead of translating the split-radix FFT
-(``FEfunc.c:146-293``), the whole window+FFT+power pipeline is one batched
-matmul against a precomputed *windowed DFT basis* [512, 514] — all frames go
-through the MXU in a single GEMM, and XLA fuses the square/add/log epilogue.
-A jnp.fft path is kept as a cross-check (identical math, different schedule).
+Design: instead of translating the split-radix FFT (``FEfunc.c:146-293``),
+the whole window+FFT+power pipeline is one batched matmul against a
+precomputed *windowed DFT basis* [512, 514] — all frames go through a single
+GEMM, and XLA fuses the square/add/log epilogue.  A jnp.fft path is kept as a
+cross-check (identical math, different schedule).
+
+Every DSP GEMM runs at ``DSP_PRECISION`` (full fp32): the decode contract is
+1 int16 LSB on samples up to 32767, which a TF32 GEMM's ~3 decimal digits
+would break.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ FRAME_SHIFT = 256
 FFT_LENGTH = 512
 NUM_BINS = FFT_LENGTH // 2 + 1  # 257
 LOG_FLOOR = -50.0
+DSP_PRECISION = jax.lax.Precision.HIGHEST
 
 # Per-rate framing parameters (Wav2LogSpec_be.c:37-59): the pipeline runs at
 # 16 kHz; 8 and 11.025 kHz are supported by the same CLI like the reference.
@@ -82,8 +87,8 @@ def _windowed_dft_basis(frame_length: int = FRAME_LENGTH,
     Column k      (k < NUM_BINS): w[n] *  cos(2*pi*n*k/N)
     Column 257+k  (k < NUM_BINS): w[n] * -sin(2*pi*n*k/N)
 
-    ``(x * w) @ [C | S]`` == rfft(x * w) split into (Re, Im) — one GEMM on
-    the MXU instead of a per-frame scalar FFT.
+    ``(x * w) @ [C | S]`` == rfft(x * w) split into (Re, Im) — one GEMM
+    instead of a per-frame scalar FFT.
     """
     n = np.arange(frame_length)[:, None].astype(np.float64)
     k = np.arange(fft_length // 2 + 1)[None, :].astype(np.float64)
@@ -120,7 +125,7 @@ def frame_signal(wave: np.ndarray, frame_length: int = FRAME_LENGTH,
 def lps_from_frames(frames: jax.Array, method: str = "matmul") -> jax.Array:
     """float32 frames [T, 512] -> log-power spectrum [T, 257].
 
-    ``method='matmul'`` (default): windowed-DFT GEMM on the MXU.
+    ``method='matmul'`` (default): windowed-DFT GEMM at full fp32.
     ``method='fft'``: jnp.fft.rfft — identical math, used as a cross-check.
     """
     frames = frames.astype(jnp.float32)
@@ -129,7 +134,8 @@ def lps_from_frames(frames: jax.Array, method: str = "matmul") -> jax.Array:
     n_bins = fft_length // 2 + 1
     if method == "matmul":
         basis = jnp.asarray(_windowed_dft_basis(frame_length, fft_length))
-        spec = jnp.dot(frames, basis, preferred_element_type=jnp.float32)
+        spec = jnp.dot(frames, basis, precision=DSP_PRECISION,
+                       preferred_element_type=jnp.float32)
         re, im = spec[:, :n_bins], spec[:, n_bins:]
         power = re * re + im * im
     elif method == "fft":
@@ -225,19 +231,19 @@ def mfcc_from_frames(frames: jax.Array) -> jax.Array:
 
     The dormant reference chain (``Wav2LogSpec_be.c:480-505``): power
     spectrum -> mel filterbank -> natural log with the e^-50 floor
-    (``ENERGYFLOOR_FB``) -> DCT.  Three chained GEMMs on the MXU.
+    (``ENERGYFLOOR_FB``) -> DCT.  Three chained GEMMs.
     """
     basis = jnp.asarray(_windowed_dft_basis())
-    spec = jnp.dot(frames.astype(jnp.float32), basis,
+    spec = jnp.dot(frames.astype(jnp.float32), basis, precision=DSP_PRECISION,
                    preferred_element_type=jnp.float32)
     re, im = spec[:, :NUM_BINS], spec[:, NUM_BINS:]
     power = re * re + im * im
     mel = jnp.dot(power, jnp.asarray(mel_filterbank()),
-                  preferred_element_type=jnp.float32)
+                  precision=DSP_PRECISION, preferred_element_type=jnp.float32)
     floor = jnp.float32(np.exp(LOG_FLOOR))
     logmel = jnp.where(mel < floor, jnp.float32(LOG_FLOOR), jnp.log(mel))
     return jnp.dot(logmel, jnp.asarray(dct_matrix()),
-                   preferred_element_type=jnp.float32)
+                   precision=DSP_PRECISION, preferred_element_type=jnp.float32)
 
 
 def wav_to_mfcc(wave: np.ndarray) -> np.ndarray:

@@ -31,6 +31,19 @@ from tpu_se.dsp.analysis import (
 )
 
 
+def to_pcm16(wave):
+    """Float samples -> int16, truncated toward zero like the reference's C
+    ``(short)`` cast (``LogSpec2Wav.c:829``) and saturated at the int16
+    range, where that cast is undefined.
+
+    One definition for the host (numpy) and the device (jax) side, so the
+    on-device conversion of the int16 serving paths gives exactly what the
+    host cast gives, out-of-range samples included.
+    """
+    xp = jnp if isinstance(wave, jax.Array) else np
+    return xp.clip(xp.trunc(wave), -32768, 32767).astype(xp.int16)
+
+
 @functools.partial(jax.jit, static_argnames=("frame_shift", "ola_kind"))
 def _synth_and_ola(lps_enh: jax.Array, noisy_frames: jax.Array,
                    valid: jax.Array, frame_shift: int = 256,
@@ -91,7 +104,7 @@ def reconstruct(lps_enh: np.ndarray, noisy_wave: np.ndarray,
     ``recon frames`` [T,len] is the de-windowed per-frame reconstruction the
     reference uses for SegSNR (``DeWindow``, ``LogSpec2Wav.c:693-698``).
     The output waveform has ``T*shift + (len-shift)`` samples (``:798``) and
-    is truncated toward zero like the C ``(short)`` cast.
+    is converted by :func:`to_pcm16`.
     """
     frame_length, frame_shift, fft_length = rate_config(sample_rate)
     n_bins = fft_length // 2 + 1
@@ -112,8 +125,7 @@ def reconstruct(lps_enh: np.ndarray, noisy_wave: np.ndarray,
     wave, recon = _synth_and_ola(jnp.asarray(lps_p), jnp.asarray(frames_p),
                                  jnp.asarray(valid), frame_shift, ola_kind)
     wave = np.asarray(wave)[: t * frame_shift + (frame_length - frame_shift)]
-    wave_i16 = np.trunc(wave).astype(np.int16)
-    return wave_i16, np.asarray(recon)[:t]
+    return to_pcm16(wave), np.asarray(recon)[:t]
 
 
 def lps_to_wav(lps_enh: np.ndarray, noisy_wave: np.ndarray,

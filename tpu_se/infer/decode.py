@@ -26,7 +26,7 @@ import numpy as np
 from tpu_se.dsp import frame_signal, lps_from_frames, reconstruct
 from tpu_se.dsp.analysis import FRAME_BUCKET, FRAME_SHIFT
 from tpu_se.dsp.metrics import segsnr_lsd_pair
-from tpu_se.dsp.synthesis import _synth_and_ola
+from tpu_se.dsp.synthesis import _synth_and_ola, to_pcm16
 from tpu_se.io import read_norm, read_wav, write_wav
 from tpu_se.io.wts import read_wts
 from tpu_se.models import forward, params_from_wts
@@ -192,9 +192,9 @@ def _decode_device_batch_waves(params, waves: jax.Array, mean: jax.Array,
     config, ``Wav2LogSpec_be.c:43,49``): adjacent shift-sized blocks are
     concatenated, so no gather is needed.  Only the enhanced waveform is
     returned (XLA dead-code-eliminates the recon/LPS outputs), and the
-    int16 conversion happens on device — host<->device traffic drops from
-    ~6 KB to ~1 KB per frame, which is what bounds decode throughput
-    through a transfer-limited link (``benchmarks/decode.json``).
+    int16 conversion (:func:`to_pcm16`, the same function the host path
+    applies) happens on device — host<->device traffic drops from ~6 KB to
+    ~1 KB per frame.
     """
     w = waves.astype(jnp.float32)
     b, s = w.shape
@@ -208,7 +208,7 @@ def _decode_device_batch_waves(params, waves: jax.Array, mean: jax.Array,
         return wave
 
     wave_b = jax.vmap(one)(frames, n_valid)
-    return jnp.trunc(wave_b).astype(jnp.int16)
+    return to_pcm16(wave_b)
 
 
 # smooth_strength="auto": fractional SMOOTHPROCESS gated by the input's
@@ -408,7 +408,7 @@ class Enhancer:
             self.blend)
         wave = np.asarray(wave)[: t * self.frame_shift
                                 + (self.frame_length - self.frame_shift)]
-        return (np.trunc(wave).astype(np.int16), np.asarray(recon)[:t],
+        return (to_pcm16(wave), np.asarray(recon)[:t],
                 np.asarray(enh)[:t])
 
     BATCH_BUCKET = 4
@@ -466,8 +466,7 @@ class Enhancer:
                             np.zeros((0, self.frame_length // 2 + 1),
                                      np.float32)))
                 continue
-            wave = np.trunc(wave_b[i, : t * self.frame_shift + tail]
-                            ).astype(np.int16)
+            wave = to_pcm16(wave_b[i, : t * self.frame_shift + tail])
             out.append((wave, recon_b[i, :t], enh_b[i, :t]))
         return out
 

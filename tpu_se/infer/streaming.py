@@ -11,7 +11,7 @@ same OLA / sum-of-squared-window normalization as ``LogSpec2Wav.c:798-827``
     half_context hops + one frame = 3*256 + 512 = 1280 samples = 80 ms
     at 16 kHz (the model's inherent lookahead; the engine adds none).
 
-TPU-native design:
+Design:
 
 - The whole per-hop pipeline — windowed-DFT GEMM, 7-frame splice from a
   device-resident ring, DNN forward, inverse-DFT GEMM, overlap-add — is ONE
@@ -19,11 +19,12 @@ TPU-native design:
   OLA accumulators) lives on device between calls; the host ships only the
   raw hop in and the enhanced hop out (1 KB each way).
 - ``n_streams`` independent channels are batched on the leading axis, so a
-  serving deployment amortizes MXU occupancy: at S=128 the forward GEMM is
-  the training bunch shape.
+  serving deployment fills larger GEMMs: at S=128 the forward GEMM is the
+  training bunch shape.
 - The analysis/synthesis transforms reuse the batch path's windowed-DFT
   basis (``tpu_se/dsp/analysis.py``); the inverse is the standard inverse
   real DFT as one GEMM — no per-frame scalar FFT (``FEfunc.c:296-447``).
+  Both run at ``DSP_PRECISION`` (full fp32) like the batch path.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from tpu_se.dsp.analysis import (
-    LOG_FLOOR, _windowed_dft_basis, hamming_window, rate_config,
+    DSP_PRECISION, LOG_FLOOR, _windowed_dft_basis, hamming_window,
+    rate_config,
 )
+from tpu_se.dsp.synthesis import to_pcm16
 from tpu_se.io import read_norm
 from tpu_se.io.wts import read_wts
 from tpu_se.models import forward, params_from_wts
@@ -64,6 +67,14 @@ def _inverse_dft_basis(frame_length: int, fft_length: int) -> np.ndarray:
     basis = np.concatenate(
         [c / fft_length * np.cos(ang), c / fft_length * -np.sin(ang)], axis=0)
     return basis.astype(np.float32)
+
+
+def inverse_dft(spec: jax.Array, frame_length: int) -> jax.Array:
+    """(Re | Im) [..., 2*n_bins] -> real frames [..., frame_length]: the
+    inverse real DFT as one full-fp32 GEMM (== ``np.fft.irfft``)."""
+    inv_basis = jnp.asarray(_inverse_dft_basis(frame_length, frame_length))
+    return jnp.dot(spec, inv_basis, precision=DSP_PRECISION,
+                   preferred_element_type=jnp.float32)
 
 
 class StreamState(NamedTuple):
@@ -213,9 +224,8 @@ def _enhance_and_emit(params, mean, inv_std, state: StreamState,
                               state.sm_prev))
     scale = jnp.where(mag > 0.0, jnp.sqrt(power) / jnp.maximum(mag, 1e-30),
                       0.0)
-    inv_basis = jnp.asarray(_inverse_dft_basis(frame_length, frame_length))
-    synth = jnp.dot(jnp.concatenate([cre * scale, cim * scale], axis=1),
-                    inv_basis, preferred_element_type=jnp.float32)
+    synth = inverse_dft(jnp.concatenate([cre * scale, cim * scale], axis=1),
+                        frame_length)
 
     win = jnp.asarray(hamming_window(frame_length))
     # The center frame exists once count-1 >= half frames have been pushed;
@@ -249,7 +259,8 @@ def _stream_step(params, mean, inv_std, state: StreamState, hop: jax.Array,
     frame = ring[:, :frame_length]
 
     basis = jnp.asarray(_windowed_dft_basis(frame_length, frame_length))
-    spec = jnp.dot(frame, basis, preferred_element_type=jnp.float32)
+    spec = jnp.dot(frame, basis, precision=DSP_PRECISION,
+                   preferred_element_type=jnp.float32)
     re, im = spec[:, :n_bins], spec[:, n_bins:]
     power = re * re + im * im
     lps = jnp.where(power < jnp.float32(np.exp(LOG_FLOOR)),
@@ -322,14 +333,14 @@ def _stream_scan_i16(params, mean, inv_std, state: StreamState,
                      ) -> tuple[StreamState, jax.Array]:
     """`_stream_scan` with an int16 wire: int16 hops in, int16 hops out.
 
-    The f32 cast-in and trunc-cast-out live inside the program, so
-    host<->device traffic is halved vs the float32 wire while the stream
-    state and all math stay float32 (identical values for integer-valued
-    input, i.e. real PCM audio)."""
+    The f32 cast-in and the int16 conversion (:func:`to_pcm16`) live inside
+    the program, so host<->device traffic is halved vs the float32 wire
+    while the stream state and all math stay float32 (identical values for
+    integer-valued input, i.e. real PCM audio)."""
     state, outs = _stream_scan(params, mean, inv_std, state,
                                hops.astype(jnp.float32), frame_shift,
                                compute_dtype, blend, smooth)
-    return state, jnp.trunc(outs).astype(jnp.int16)
+    return state, to_pcm16(outs)
 
 
 @functools.partial(jax.jit,
@@ -526,7 +537,7 @@ class StreamingEnhancer:
         self._pending = buf[n_hops * shift:]
         if not pieces:
             return np.zeros((0,), dtype=np.int16)
-        return np.trunc(np.concatenate(pieces)).astype(np.int16)
+        return to_pcm16(np.concatenate(pieces))
 
     def flush(self) -> np.ndarray:
         """Drain the latency pipeline (single-stream).
@@ -546,14 +557,13 @@ class StreamingEnhancer:
                            dtype=np.float32)
             out = self.push(np.concatenate([self._pending, pad])[None, :])
             if out is not None:
-                pieces.append(np.trunc(out[0]).astype(np.int16))
+                pieces.append(to_pcm16(out[0]))
         self._pending = np.zeros((0,), dtype=np.float32)
-        pieces.extend(np.trunc(out[0]).astype(np.int16)
-                      for out in self.flush_hops())
+        pieces.extend(to_pcm16(out[0]) for out in self.flush_hops())
         ntail = self.frame_length - self.frame_shift
         tail = (np.asarray(self.state.acc)[:, :ntail]
                 / np.maximum(np.asarray(self.state.w2)[:, :ntail], 1e-20))
-        pieces.append(np.trunc(tail[0]).astype(np.int16))
+        pieces.append(to_pcm16(tail[0]))
         return np.concatenate(pieces)
 
     def flush_hops(self):

@@ -21,6 +21,18 @@ import numpy as np
 DEFAULT_LAYERSIZES = (1799, 2048, 2048, 2048, 257)
 
 
+def gemm_precision(compute_dtype) -> jax.lax.Precision:
+    """The ``precision`` of the model's GEMMs for a compute dtype.
+
+    float32 means full fp32 (``HIGHEST``), as the reference's cuBLAS SGEMM
+    computes it (``BP_GPU.cu:430-432``); without it a GPU may run float32
+    dots in TF32.  Reduced dtypes keep the backend's default.
+    """
+    if jnp.dtype(compute_dtype) == jnp.float32:
+        return jax.lax.Precision.HIGHEST
+    return jax.lax.Precision.DEFAULT
+
+
 def init_params(seed: int, layersizes=DEFAULT_LAYERSIZES,
                 flag: int = 1, beta: float = 2.0) -> list[dict]:
     """Random init matching Gen_rand_net (``Gen_rand_net.cpp:84-103``).
@@ -68,9 +80,10 @@ def forward(params: list[dict], x: jax.Array,
             act_dtype=None) -> jax.Array:
     """Batched forward: x [M, n_in] -> [M, n_out].
 
-    ``compute_dtype=jnp.bfloat16`` runs the GEMMs on the MXU in bf16 with
-    float32 accumulation (params stay float32 — the fast path for benching;
-    float32 is the parity default).
+    ``compute_dtype=jnp.bfloat16`` runs the GEMMs in bf16 with float32
+    accumulation (params stay float32 — the fast path for benching;
+    float32 is the parity default, computed in full fp32, see
+    :func:`gemm_precision`).
 
     ``activation`` selects the hidden nonlinearity: "sigmoid" (default) or
     "relu" — the reference's ``#ifdef RELU`` build (``DevFunc.cu:40-49``,
@@ -91,6 +104,7 @@ def forward(params: list[dict], x: jax.Array,
         raise ValueError(f"unknown activation {activation!r}")
     h = x
     n_layers = len(params)
+    precision = gemm_precision(compute_dtype)
     for i, layer in enumerate(params):
         if dropout_rates is not None and dropout_rng is not None:
             p = dropout_rates[0] if i == 0 else dropout_rates[1]
@@ -99,12 +113,12 @@ def forward(params: list[dict], x: jax.Array,
                 keep = jax.random.bernoulli(sub, 1.0 - p, h.shape)
                 h = jnp.where(keep, h / (1.0 - p), 0.0)
         w = layer["w"].astype(compute_dtype)
-        z = jnp.dot(h.astype(compute_dtype), w,
+        z = jnp.dot(h.astype(compute_dtype), w, precision=precision,
                     preferred_element_type=jnp.float32) + layer["b"]
         h = act(z) if i < n_layers - 1 else z
         if act_dtype is not None and i < n_layers - 1:
             # Opt-in reduced-precision activations (e.g. bf16): halves the
-            # HBM traffic of the inter-layer tensors the vjp must also
+            # device-memory traffic of the inter-layer tensors the vjp must also
             # save.  Output layer stays f32.  Bench/throughput knob — the
             # parity path never sets it.
             h = h.astype(act_dtype)

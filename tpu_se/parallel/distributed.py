@@ -3,8 +3,8 @@
 The reference is strictly single-process/single-GPU (SURVEY.md §2.4); this
 module is the new framework's multi-host entry: ``jax.distributed`` for the
 runtime, per-host input sharding via ``tpu_se.data.pipeline.shard_for_host``,
-ICI collectives inside the jitted step (no NCCL/MPI analogue needed — GSPMD
-emits them from the shardings).
+collectives inside the jitted step (GSPMD emits them from the shardings;
+XLA hands them to NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ def initialize_distributed(coordinator_address: str | None = None,
                            cpu_collectives: str | None = None) -> dict:
     """Initialize jax.distributed when running multi-host; no-op otherwise.
 
-    On TPU pods the collectives ride ICI automatically; pass
+    GPUs reduce over NCCL without further setup; pass
     ``cpu_collectives="gloo"`` for multi-process CPU runs (CI / the
     multi-host equivalence test) so the CPU backend joins the cluster.
     Returns a summary dict (process index/count, local/global devices).

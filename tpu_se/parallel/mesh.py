@@ -1,15 +1,15 @@
 """Device mesh and sharding layout for the training engine.
 
 The workload is data-parallel by nature (each sample is an independent
-1799-dim frame; the ~8.9 M-param model fits on one chip, SURVEY.md §2.4), so
+1799-dim frame; the ~12.6 M-param model fits on one device, SURVEY.md §2.4), so
 the primary mesh axis is ``data``:
 
-- frames [F, 257]: replicated (each chip gathers its own bunch shard from
-  the full chunk — frames are ~100 MB, far cheaper than cross-chip gathers).
-- window starts [n_bunches, M]: sharded on the bunch axis ``M`` -> each chip
+- frames [F, 257]: replicated (each device gathers its own bunch shard from
+  the full chunk — frames are ~100 MB, far cheaper than cross-device gathers).
+- window starts [n_bunches, M]: sharded on the bunch axis ``M`` -> each device
   splices and forwards M/n_data samples.
 - params/velocity: replicated; GSPMD turns the vjp weight-gradient GEMM
-  reductions and the GGD alpha batch-mean into ICI psums.
+  reductions and the GGD alpha batch-mean into cross-device psums.
 
 An optional ``model`` axis demonstrates tensor parallelism over the hidden
 dims (column-parallel W1, alternating thereafter) for scale-out of wider

@@ -75,13 +75,15 @@ class TrainConfig:
     visible_omit: float = 0.1
     hid_omit: float = 0.1
     device_resident: str = "auto"    # keep the dataset in HBM across epochs
+    # Upload budget for a resident dataset: it bounds both the host RAM
+    # the one-shot load takes and the device memory the frames then hold.
     device_resident_max_bytes: int = 4 << 30
     mesh: object = None              # optional jax.sharding.Mesh
     checkpoint_every_chunks: int = 0  # >0: mid-epoch partial checkpoints
     # Multi-host runtime (jax.distributed). Set coordinator ("host:port" of
     # process 0) on every process to join the cluster; the global mesh is
     # built automatically when mesh is None. cpu_collectives="gloo" for
-    # multi-process CPU runs (tests / CI); TPU pods ride ICI natively.
+    # multi-process CPU runs (tests / CI); GPUs use NCCL without it.
     coordinator: str = ""
     num_processes: int | None = None
     process_id: int | None = None
@@ -285,7 +287,7 @@ def run_training(cfg: TrainConfig, log=print) -> str:
     Multi-host (``cfg.coordinator`` set, one process per host, mirroring the
     per-process epoch model of ``finetune.pl``->``BPtrain`` but SPMD): every
     process runs the same schedule over a global device mesh; per-bunch
-    gradient and GGD-alpha reductions become ICI/DCN psums via GSPMD; input
+    gradient and GGD-alpha reductions become cross-device psums via GSPMD; input
     rows are read 1/P per host; only process 0 writes .wts/logs, with a
     barrier after each epoch so resume-by-existence stays consistent on
     shared storage.

@@ -1,6 +1,6 @@
 """The jit/scan training engine: one dispatch per chunk, not per bunch.
 
-TPU-first redesign of the reference's per-bunch CUDA loop
+Redesign of the reference's per-bunch CUDA loop
 (``BP_GPU.cu:152-185,308-440``):
 
 - A whole traincache chunk (frames [F, 257] + shuffled window starts) lives
@@ -18,7 +18,7 @@ TPU-first redesign of the reference's per-bunch CUDA loop
   ``starts[: n_bunches*M]``), matching ``BP_GPU.cu:170-184``.
 
 Under a data mesh, batch-sharded gathers + replicated params turn the vjp
-GEMM reductions and the alpha batch-mean into ICI psums automatically
+GEMM reductions and the alpha batch-mean into cross-device psums automatically
 (GSPMD); see ``tpu_se.parallel`` for the shardings.
 """
 
